@@ -1,4 +1,4 @@
-"""Accuracy race: TPU engine vs faithful reference-semantics CPU baseline.
+"""Accuracy race: the batched engine vs a faithful reference-semantics CPU baseline.
 
 The BASELINE north star is "ATE <= reference" on real RGB-D sequences.  No
 TUM/ICL data exists in this environment and the reference's C++ stack
@@ -18,7 +18,7 @@ utils/synthetic_hard.py) — through the SAME feature front-end, and race:
              retro-corrected export (models/system.py)
 
 Output: a markdown table (stdout + results/ACCURACY.md) of ATE RMSE per
-sequence.  Run on CPU or TPU; the sequences are deterministic per seed.
+sequence.  Run on the CPU or the GPU; the sequences are deterministic per seed.
 
 Usage:
   JAX_PLATFORMS=cpu python scripts/accuracy_compare.py \
@@ -40,13 +40,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from aslam_tpu.baselines import refcpu  # noqa: E402
-from aslam_tpu.config import TUM_FR1, SystemConfig, small_config  # noqa: E402
-from aslam_tpu.models import frame as frame_mod  # noqa: E402
-from aslam_tpu.models.extractor import init_adaptive_state  # noqa: E402
-from aslam_tpu.ops import matching  # noqa: E402
-from aslam_tpu.utils import synthetic_hard as sh  # noqa: E402
-from aslam_tpu.utils import trajectory  # noqa: E402
+from aslam.baselines import refcpu  # noqa: E402
+from aslam.config import TUM_FR1, SystemConfig, small_config  # noqa: E402
+from aslam.models import frame as frame_mod  # noqa: E402
+from aslam.models.extractor import init_adaptive_state  # noqa: E402
+from aslam.ops import matching  # noqa: E402
+from aslam.utils import synthetic_hard as sh  # noqa: E402
+from aslam.utils import trajectory  # noqa: E402
 
 
 def centers_of(T_cw: np.ndarray) -> np.ndarray:
@@ -104,7 +104,7 @@ def run_ref_cpu(cfg: SystemConfig, frames, seed: int = 0) -> np.ndarray:
 
 def run_aslam_vo(cfg: SystemConfig, frames, seed: int = 0) -> np.ndarray:
     """Production fused VO on the same FrameData sequence."""
-    from aslam_tpu.models.odometry import rba_step
+    from aslam.models.odometry import rba_step
 
     key = jax.random.PRNGKey(seed)
     poses = [np.eye(4)]
@@ -118,7 +118,7 @@ def run_aslam_vo(cfg: SystemConfig, frames, seed: int = 0) -> np.ndarray:
 
 
 def run_aslam_slam(cfg: SystemConfig, imgs, depths, loop: bool) -> np.ndarray:
-    from aslam_tpu.models.system import SlamSystem
+    from aslam.models.system import SlamSystem
 
     scfg = cfg.replace(use_loop_closing=loop)
     slam = SlamSystem(scfg)
@@ -207,7 +207,7 @@ def main(argv=None):
     print(table)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
-        f.write("# Accuracy: aslam_tpu vs reference-semantics CPU baseline\n\n"
+        f.write("# Accuracy: aslam vs reference-semantics CPU baseline\n\n"
                 "Identical inputs (shared front-end), hard synthetic suite "
                 "(textured surfaces, fr1 distortion, Khoshelham depth noise, "
                 "rolling illumination).  Generated by "

@@ -30,12 +30,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from aslam_tpu.config import TUM_FR1, SystemConfig, small_config  # noqa: E402
-from aslam_tpu.models import frame as frame_mod  # noqa: E402
-from aslam_tpu.models.extractor import init_adaptive_state  # noqa: E402
-from aslam_tpu.models.odometry import rba_step  # noqa: E402
-from aslam_tpu.utils import synthetic_hard as sh  # noqa: E402
-from aslam_tpu.utils import trajectory  # noqa: E402
+from aslam.config import TUM_FR1, SystemConfig, small_config  # noqa: E402
+from aslam.models import frame as frame_mod  # noqa: E402
+from aslam.models.extractor import init_adaptive_state  # noqa: E402
+from aslam.models.odometry import rba_step  # noqa: E402
+from aslam.utils import synthetic_hard as sh  # noqa: E402
+from aslam.utils import trajectory  # noqa: E402
 
 
 def contrast_envelope(n: int) -> np.ndarray:

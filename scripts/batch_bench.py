@@ -8,9 +8,9 @@ def main():
     ap.add_argument("--frames", type=int, default=16)
     args = ap.parse_args()
     import jax
-    from aslam_tpu.config import SystemConfig, CameraModel
-    from aslam_tpu.models.batch_vo import BatchVisualOdometry
-    from aslam_tpu.utils import synthetic
+    from aslam.config import SystemConfig, CameraModel
+    from aslam.models.batch_vo import BatchVisualOdometry
+    from aslam.utils import synthetic
     cam = CameraModel(fx=517.3, fy=516.5, cx=318.6, cy=255.3, width=640, height=480)
     cfg = SystemConfig(camera=cam)
     print("devices:", jax.devices(), flush=True)

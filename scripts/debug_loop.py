@@ -13,9 +13,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from aslam_tpu.config import TUM_FR1, SystemConfig, small_config  # noqa: E402
-from aslam_tpu.utils import synthetic_hard as sh  # noqa: E402
-from aslam_tpu.utils import trajectory  # noqa: E402
+from aslam.config import TUM_FR1, SystemConfig, small_config  # noqa: E402
+from aslam.utils import synthetic_hard as sh  # noqa: E402
+from aslam.utils import trajectory  # noqa: E402
 
 
 def centers_of(T_cw):
@@ -24,9 +24,9 @@ def centers_of(T_cw):
 
 def run(cfg, imgs, depths, gt_c, gt_T, loop: bool, tag: str,
         no_fuse=False, no_lba=False, no_cull=False, quiet=False):
-    from aslam_tpu.models import localmapping as lmod
-    from aslam_tpu.models import mapstate as ms
-    from aslam_tpu.models.system import SlamSystem
+    from aslam.models import localmapping as lmod
+    from aslam.models import mapstate as ms
+    from aslam.models.system import SlamSystem
 
     # ablation monkeypatches (debug only)
     orig_fuse = lmod.fuse_landmarks

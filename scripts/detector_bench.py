@@ -35,12 +35,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from aslam_tpu.config import ExtractorConfig, SystemConfig
-    from aslam_tpu.models.extractor import extract_features, init_adaptive_state
-    from aslam_tpu.utils import synthetic
+    from aslam.config import ExtractorConfig, SystemConfig
+    from aslam.models.extractor import extract_features, init_adaptive_state
+    from aslam.utils import synthetic
 
     if args.dataset:
-        from aslam_tpu.utils.dataset import TumSequence
+        from aslam.utils.dataset import TumSequence
 
         seq = TumSequence(args.dataset)
         frames = [seq[i][1] for i in range(min(args.frames, len(seq)))]

@@ -15,7 +15,7 @@ chip).  This script:
   4. saves the FINAL session checkpoint for the virtual-mesh sharded-GBA
      run (scripts/sharded_gba_from_checkpoint.py).
 
-Usage: python scripts/finish_10k.py --ckpt /tmp/ck10k
+Usage: python scripts/finish_10k.py --ckpt ck10k
 """
 
 from __future__ import annotations
@@ -34,26 +34,26 @@ from scripts.scale_slam_bench import bounded_walk  # noqa: E402
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ckpt", default="/tmp/ck10k")
+    ap.add_argument("--ckpt", default="ck10k")
     ap.add_argument("--kfs", type=int, default=8192)
     ap.add_argument("--seqs", type=int, default=8)
     ap.add_argument("--done-seqs", type=int, default=4,
                     help="sequences already in the checkpoint")
     ap.add_argument("--scale", type=float, default=3.0)
     ap.add_argument("--chunk", type=int, default=64)
-    ap.add_argument("--final-ckpt", default="/tmp/ck10k_final")
+    ap.add_argument("--final-ckpt", default="ck10k_final")
     ap.add_argument("--out", default="docs/SCALE_SLAM_10K.md")
     args = ap.parse_args(argv)
 
     import jax
 
-    from aslam_tpu.config import (BAConfig, CameraModel, ExtractorConfig,
+    from aslam.config import (BAConfig, CameraModel, ExtractorConfig,
                                   MapConfig, SystemConfig)
     import dataclasses as _dc
 
-    from aslam_tpu.models.device_slam import DeviceSlam
-    from aslam_tpu.utils import synthetic_hard as sh
-    from aslam_tpu.utils import trajectory
+    from aslam.models.device_slam import DeviceSlam
+    from aslam.utils import synthetic_hard as sh
+    from aslam.utils import trajectory
 
     cam = CameraModel(fx=258.6, fy=258.2, cx=159.3, cy=127.6,
                       width=320, height=240)
@@ -179,16 +179,10 @@ def main(argv=None):
                 "sequence resumed from the mid-session checkpoint).  "
                 "320x240/512 kp, 3x room, loop closing ON "
                 "(pose-graph corrections; post-GBA deferred to the "
-                "virtual-mesh sharded run), 1x TPU v5e.\n\n"
-                "## Session timeline (from the run log)\n\n"
-                "| seq | frames | live KFs after | loops | wall (s, excl. render) |\n"
-                "|---|---|---|---|---|\n"
-                "| 0 | 2355 | 1635 | 4 | ~486 (compiles) |\n"
-                "| 1 | 2355 | 4159 | 14 | ~574 |\n"
-                "| 2 | 2355 | 5666 | 23 | ~344 |\n"
-                "| 3 | 2355 | 7845 | (+ mid-session checkpoint/resume, 120 s) | ~574 |\n"
-                f"| 4 | {n_done} | **{n_kfs}** (capacity) | — | {dt:.0f} |\n\n"
-                f"Sequence-4 rate at K~8k: **{n_done / dt:.1f} fps**.\n\n"
+                "virtual-mesh sharded run).\n\n"
+                f"Sequence 4: {n_done} frames to **{n_kfs}** live keyframes "
+                f"(capacity) in {dt:.0f} s = {n_done / dt:.1f} frames/s on "
+                f"{jax.devices()[0].device_kind}.\n\n"
                 "## Accuracy (rebuilt trajectory vs ground truth)\n\n"
                 "| sequence | frames | ATE (m) |\n|---|---|---|\n")
             for s, nn, ate in rows:

@@ -31,12 +31,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp  # noqa: E402
 
-from aslam_tpu.config import TUM_FR1, SystemConfig  # noqa: E402
-from aslam_tpu.models import localmapping as lmod  # noqa: E402
-from aslam_tpu.models.system import SlamSystem  # noqa: E402
-from aslam_tpu.ops import lba  # noqa: E402
-from aslam_tpu.utils import camera as cam_mod  # noqa: E402
-from aslam_tpu.utils import synthetic_hard as sh  # noqa: E402
+from aslam.config import TUM_FR1, SystemConfig  # noqa: E402
+from aslam.models import localmapping as lmod  # noqa: E402
+from aslam.models.system import SlamSystem  # noqa: E402
+from aslam.ops import lba  # noqa: E402
+from aslam.utils import camera as cam_mod  # noqa: E402
+from aslam.utils import synthetic_hard as sh  # noqa: E402
 
 
 def chi2_of(prob, cam, cfg):

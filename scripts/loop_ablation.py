@@ -13,7 +13,7 @@ fixes over >= 3 seeds of the same session family:
   loc+covw   — localized + covisibility-proportional edge information
 
 Runs the device engine (chunked scan + batched loop cadence) so a full
-multi-sequence session fits in minutes on the TPU; CPU works with
+multi-sequence session fits in minutes on the GPU; CPU works with
 --kfs 128 --seqs 2.
 
 Usage:
@@ -44,7 +44,7 @@ def render_session(seed: int, seqs: int, n_pf: int, scene, cam):
     key = (seed, seqs, n_pf)
     if key in _RENDER_CACHE:
         return _RENDER_CACHE[key]
-    from aslam_tpu.utils import synthetic_hard as sh
+    from aslam.utils import synthetic_hard as sh
 
     rng = np.random.default_rng(1000 + seed)
     out = []
@@ -77,8 +77,8 @@ def run_session(cfg, seed: int, seqs: int, n_pf: int, chunk: int,
                 scene, cam):
     import jax
 
-    from aslam_tpu.models.device_slam import DeviceSlam
-    from aslam_tpu.utils import trajectory
+    from aslam.models.device_slam import DeviceSlam
+    from aslam.utils import trajectory
 
     rendered = render_session(seed, seqs, n_pf, scene, cam)
     dev = DeviceSlam(cfg, seed=seed, sync_every=4 * chunk,
@@ -124,9 +124,9 @@ def main(argv=None):
 
     import jax
 
-    from aslam_tpu.config import (BAConfig, CameraModel, ExtractorConfig,
+    from aslam.config import (BAConfig, CameraModel, ExtractorConfig,
                                   MapConfig, SystemConfig)
-    from aslam_tpu.utils import synthetic_hard as sh
+    from aslam.utils import synthetic_hard as sh
 
     cam = CameraModel(fx=258.6, fy=258.2, cx=159.3, cy=127.6,
                       width=320, height=240)

@@ -33,7 +33,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from aslam_tpu.parallel.partition import (  # noqa: E402
+from aslam.parallel.partition import (  # noqa: E402
     contiguous_assignment, edge_cut_fraction, partition_keyframes,
     shard_of_from_perm,
 )
@@ -150,13 +150,13 @@ def solver_level(args):
     import jax
     import jax.numpy as jnp
 
-    from aslam_tpu.config import (CameraModel, ExtractorConfig, MapConfig,
+    from aslam.config import (CameraModel, ExtractorConfig, MapConfig,
                                   SystemConfig)
-    from aslam_tpu.models import mapstate as ms
-    from aslam_tpu.parallel import mesh as mesh_mod
-    from aslam_tpu.parallel.partition import permute_kf_rows
-    from aslam_tpu.parallel.sharded_global_ba import pad_map_for_mesh
-    from aslam_tpu.parallel.sharded_gn_cg import sharded_gn_cg_step
+    from aslam.models import mapstate as ms
+    from aslam.parallel import mesh as mesh_mod
+    from aslam.parallel.partition import permute_kf_rows
+    from aslam.parallel.sharded_global_ba import pad_map_for_mesh
+    from aslam.parallel.sharded_gn_cg import sharded_gn_cg_step
 
     K, M = args.solver_kfs, args.solver_feats
     S = args.seqs

@@ -52,12 +52,12 @@ def main(argv=None):
     import jax
     import jax.numpy as jnp
 
-    from aslam_tpu.config import (BAConfig, CameraModel, ExtractorConfig,
+    from aslam.config import (BAConfig, CameraModel, ExtractorConfig,
                                   MapConfig, SystemConfig)
-    from aslam_tpu.models import localmapping as lm
-    from aslam_tpu.models import mapstate as ms
-    from aslam_tpu.ops import lba as lba_mod
-    from scripts.scale_bench import build_corridor_map
+    from aslam.models import localmapping as lm
+    from aslam.models import mapstate as ms
+    from aslam.ops import lba as lba_mod
+    from aslam.workloads import build_corridor_map
 
     cam = CameraModel(fx=258.6, fy=258.2, cx=159.3, cy=127.6,
                       width=320, height=240)
@@ -160,7 +160,7 @@ def main(argv=None):
 
     def s_matmul(carry):
         W_, = carry
-        from aslam_tpu.ops.linalg import chol_inv
+        from aslam.ops.linalg import chol_inv
         Hll_inv = chol_inv(Hll + jnp.eye(3) * 1e-3)
         Y = jnp.einsum("clij,ljk->clik", W_, Hll_inv)
         S = -jnp.einsum("clik,dljk->cidj", Y, W_,
@@ -170,9 +170,9 @@ def main(argv=None):
 
     # ---------------- local-map tracking internals ----------------
     print("\n--- track_local_map internals ---", flush=True)
-    from aslam_tpu.ops import matching
-    from aslam_tpu.ops import ba as ba_mod
-    from aslam_tpu.utils import camera as camera_mod
+    from aslam.ops import matching
+    from aslam.ops import ba as ba_mod
+    from aslam.utils import camera as camera_mod
 
     L = m.lm_pos.shape[0]
     M = args.feats

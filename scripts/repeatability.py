@@ -48,14 +48,14 @@ def main():
 
     import jax.numpy as jnp
 
-    from aslam_tpu.config import ExtractorConfig
-    from aslam_tpu.models.extractor import extract_features
-    from aslam_tpu.utils import evaluation, synthetic
+    from aslam.config import ExtractorConfig
+    from aslam.models.extractor import extract_features
+    from aslam.utils import evaluation, synthetic
 
     rng = np.random.default_rng(0)
     # textured base image
     base = rng.uniform(0, 255, (480, 640)).astype(np.float32)
-    from aslam_tpu.ops.pyramid import gaussian_blur
+    from aslam.ops.pyramid import gaussian_blur
 
     base = np.asarray(gaussian_blur(jnp.asarray(base), 7, 1.5)) * 2.0
     base = np.clip(base, 0, 255)

@@ -16,91 +16,6 @@ import time
 import numpy as np
 
 
-def build_corridor_map(cfg, n_kfs: int, n_feats: int, seed: int = 0):
-    """Vectorized large-map construction: KF k at x = 0.05k looking down
-    +z; landmarks on a 3D strip; KF k observes a contiguous landmark
-    window (realistic covisibility banding)."""
-    import jax.numpy as jnp
-
-    from aslam_tpu.models import mapstate as ms
-
-    rng = np.random.default_rng(seed)
-    cam = cfg.camera
-    step = 0.05
-    lm_per_kf = max(n_feats // 4, 1)          # window shift per KF
-    L = n_kfs * lm_per_kf + n_feats
-
-    # landmarks: strip along x, lateral scatter, 2-4 m ahead
-    lx = np.arange(L) * (step / lm_per_kf)
-    lm_pos = np.stack([
-        lx + rng.uniform(-0.5, 0.5, L),
-        rng.uniform(-1.0, 1.0, L),
-        rng.uniform(2.0, 4.0, L),
-    ], -1).astype(np.float32)
-
-    kf_x = np.arange(n_kfs, dtype=np.float32) * step
-    T = np.tile(np.eye(4, dtype=np.float32), (n_kfs, 1, 1))
-    T[:, 0, 3] = -kf_x                         # camera at world x
-
-    # observation windows: KF k sees landmarks [k*lm_per_kf, +n_feats)
-    base = (np.arange(n_kfs)[:, None] * lm_per_kf
-            + np.arange(n_feats)[None, :])    # [K, M]
-    pts = lm_pos[base]                         # [K, M, 3]
-    pc = pts.copy()
-    pc[..., 0] -= kf_x[:, None]
-    z = pc[..., 2]
-    u = cam.fx * pc[..., 0] / z + cam.cx
-    v = cam.fy * pc[..., 1] / z + cam.cy
-    u += rng.normal(0, 0.3, u.shape).astype(np.float32)
-    v += rng.normal(0, 0.3, v.shape).astype(np.float32)
-    valid = (u > 0) & (u < cam.width) & (v > 0) & (v < cam.height)
-    ur = np.where(z > 0, u - cam.bf / z, -1.0)
-
-    m = ms.init_map(cfg)
-    # resize map arrays to this scale (BA-only fields; descriptors stay
-    # minimal)
-    m = m._replace(
-        kf_T_cw=jnp.asarray(T),
-        kf_valid=jnp.ones(n_kfs, bool),
-        kf_id=jnp.arange(n_kfs, dtype=jnp.int32),
-        kf_xy=jnp.asarray(np.stack([u, v], -1).astype(np.float32)),
-        kf_ur=jnp.asarray(ur.astype(np.float32)),
-        kf_z=jnp.asarray(z.astype(np.float32)),
-        kf_desc=jnp.zeros((n_kfs, n_feats, 8), jnp.uint32),
-        kf_octave=jnp.zeros((n_kfs, n_feats), jnp.int32),
-        kf_kp_valid=jnp.asarray(valid),
-        kf_lm=jnp.asarray(base.astype(np.int32)),
-        lm_pos=jnp.asarray(
-            lm_pos + rng.normal(0, 0.02, lm_pos.shape).astype(np.float32)),
-        lm_desc=jnp.zeros((L, 8), jnp.uint32),
-        lm_valid=jnp.ones(L, bool),
-        lm_first_kf=jnp.zeros(L, jnp.int32),
-        lm_visible=jnp.ones(L, jnp.int32),
-        lm_found=jnp.ones(L, jnp.int32),
-        **_observer_index(base, valid, L, n_kfs),
-    )
-    return m, T, lm_pos
-
-
-def _observer_index(base, valid, L, n_kfs, O=16):
-    """Vectorized observer reverse index for the banded corridor map."""
-    import jax.numpy as jnp
-
-    okf = np.full((L, O), -1, np.int32)
-    ofe = np.zeros((L, O), np.int32)
-    ptr = np.zeros(L, np.int32)
-    feats = np.arange(base.shape[1], dtype=np.int32)
-    for k in range(n_kfs):
-        ls = base[k][valid[k]]
-        fs = feats[valid[k]]
-        pos = ptr[ls] % O
-        okf[ls, pos] = k
-        ofe[ls, pos] = fs
-        ptr[ls] += 1
-    return dict(lm_obs_kf=jnp.asarray(okf), lm_obs_feat=jnp.asarray(ofe),
-                lm_obs_ptr=jnp.asarray(ptr))
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kfs", type=int, default=10240)
@@ -113,9 +28,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from aslam_tpu.config import SystemConfig, CameraModel, MapConfig, \
+    from aslam.config import SystemConfig, CameraModel, MapConfig, \
         ExtractorConfig
-    from aslam_tpu.ops import global_ba
+    from aslam.ops import global_ba
+    from aslam.workloads import build_corridor_map
 
     cam = CameraModel(fx=517.3, fy=516.5, cx=318.6, cy=255.3,
                       width=640, height=480)

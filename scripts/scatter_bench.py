@@ -1,9 +1,9 @@
-"""Micro-benchmark: landmark-block accumulation strategies on TPU.
+"""Micro-benchmark: landmark-block accumulation strategies.
 
 The map-scale BA sweeps (ops/global_ba.py) accumulate per-edge 3x3/3x1
 normal-equation blocks into per-landmark rows.  The natural formulation is
-a scatter-add (`.at[lm].add(v)`), which XLA:TPU serializes over duplicate
-indices; PERF.md identifies it as the sweep bottleneck.  Candidate
+a scatter-add (`.at[lm].add(v)`), which resolves duplicate indices with
+atomics (and in a different sum order than the CPU).  Candidate
 replacement: sort-free two-pass segment reduction —
 
   1. sort edge values by landmark id (one argsort per problem, reusable

@@ -8,7 +8,7 @@ invoke the covisibility-placed distributed GN-CG
 the process mesh.  Run under the virtual 8-device CPU mesh:
 
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
-      python scripts/sharded_gba_from_checkpoint.py --ckpt /tmp/ck10k_final
+      python scripts/sharded_gba_from_checkpoint.py --ckpt ck10k_final
 
 (The same step OOMs on a 1x1 mesh — the whole 8k-KF problem needs ~35 GB
 — which is exactly why config 5 shards it.)
@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ckpt", default="/tmp/ck10k_final")
+    ap.add_argument("--ckpt", default="ck10k_final")
     ap.add_argument("--kfs", type=int, default=8192)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default="")
@@ -37,9 +37,9 @@ def main(argv=None):
 
     import jax
 
-    from aslam_tpu.config import (BAConfig, CameraModel, ExtractorConfig,
+    from aslam.config import (BAConfig, CameraModel, ExtractorConfig,
                                   MapConfig, SystemConfig)
-    from aslam_tpu.models.device_slam import DeviceSlam
+    from aslam.models.device_slam import DeviceSlam
 
     cam = CameraModel(fx=258.6, fy=258.2, cx=159.3, cy=127.6,
                       width=320, height=240)
@@ -64,7 +64,7 @@ def main(argv=None):
     print(f"resumed session map: {n_kfs} live KFs, "
           f"{int(np.asarray(m.lm_valid).sum())} landmarks", flush=True)
 
-    from aslam_tpu.ops.global_ba import map_chi2
+    from aslam.ops.global_ba import map_chi2
 
     chi0 = float(map_chi2(m, cfg.camera, cfg.ba))
     t0 = time.time()

@@ -81,9 +81,9 @@ CONFIGS = {
 def run_one(config: str, kind: str, seed: int, frames: int) -> dict:
     import jax.numpy as jnp  # noqa: F401
 
-    from aslam_tpu.config import TUM_FR1, SystemConfig
-    from aslam_tpu.utils import synthetic_hard as sh
-    from aslam_tpu.utils import trajectory
+    from aslam.config import TUM_FR1, SystemConfig
+    from aslam.utils import synthetic_hard as sh
+    from aslam.utils import trajectory
 
     cfg = SystemConfig(camera=TUM_FR1)
     fn, use_loop = CONFIGS[config]
@@ -95,9 +95,9 @@ def run_one(config: str, kind: str, seed: int, frames: int) -> dict:
     if config == "vo":
         import jax
 
-        from aslam_tpu.models import frame as frame_mod
-        from aslam_tpu.models.extractor import init_adaptive_state
-        from aslam_tpu.models.odometry import rba_step
+        from aslam.models import frame as frame_mod
+        from aslam.models.extractor import init_adaptive_state
+        from aslam.models.odometry import rba_step
 
         st = init_adaptive_state(cfg.extractor)
         fr = []
@@ -120,7 +120,7 @@ def run_one(config: str, kind: str, seed: int, frames: int) -> dict:
                 "ate_frozen": float(ate), "ate_rebuilt": float(ate),
                 "kfs": 0}
 
-    from aslam_tpu.models.system import SlamSystem
+    from aslam.models.system import SlamSystem
 
     slam = SlamSystem(cfg.replace(use_loop_closing=use_loop))
     for i in range(frames):
@@ -136,6 +136,20 @@ def run_one(config: str, kind: str, seed: int, frames: int) -> dict:
         "kfs": int(slam.tracking.n_kfs),
         "loops": len(slam.loop_closing.loops) if slam.loop_closing else 0,
     }
+
+
+def _card_count() -> int:
+    """GPUs on this host, 0 for a CPU run.  Read with nvidia-smi so the
+    parent never starts a JAX client (which would hold a card's memory)."""
+    if os.environ.get("JAX_PLATFORMS", "") == "cpu":
+        return 0
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return 0
+    return len(out.split())
 
 
 def main():
@@ -160,11 +174,15 @@ def main():
     configs = args.configs.split(",")
     jobs = [(c, k, s) for c in configs for k in kinds for s in seeds]
     results = []
-    running: list[tuple[tuple, subprocess.Popen]] = []
-    env = dict(os.environ)
+    running: list[tuple[tuple, subprocess.Popen, int]] = []
+    # one worker per card: a JAX process reserves most of a card's memory
+    n_cards = _card_count()
+    if n_cards:
+        args.jobs = min(args.jobs, n_cards)
+    free_cards = list(range(n_cards))
 
     def drain(block: bool):
-        for spec, p in list(running):
+        for spec, p, card in list(running):
             if p.poll() is None and not block:
                 continue
             out, _ = p.communicate()
@@ -179,7 +197,9 @@ def main():
                     break
             else:
                 print(f"  WORKER FAILED {spec}:\n{out[-2000:]}", flush=True)
-            running.remove((spec, p))
+            running.remove((spec, p, card))
+            if card >= 0:
+                free_cards.append(card)
 
     import time
 
@@ -189,16 +209,20 @@ def main():
             if len(running) >= args.jobs:
                 # poll-sleep rather than wait(): wait() on a stdout=PIPE
                 # child can deadlock if the child fills the ~64KB pipe
-                # buffer before exiting (ADVICE r2)
+                # buffer before exiting
                 time.sleep(0.5)
         c, k, s = spec
+        env = dict(os.environ)
+        card = free_cards.pop(0) if n_cards else -1
+        if card >= 0:
+            env["CUDA_VISIBLE_DEVICES"] = str(card)
         p = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--worker",
              c, k, str(s), str(args.frames)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=env,
         )
-        running.append((spec, p))
+        running.append((spec, p, card))
     while running:
         drain(block=True)
 

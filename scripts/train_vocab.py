@@ -13,7 +13,7 @@ Usage:
   JAX_PLATFORMS=cpu python scripts/train_vocab.py \
       [--branching 10 --depth 4 --scenes 6 --frames 30 --cap 200000]
 
-Writes aslam_tpu/assets/vocab_{B}_{D}.npz (a few hundred KB at 10^4 words)
+Writes aslam/assets/vocab_{B}_{D}.npz (a few hundred KB at 10^4 words)
 — loaded by default by LoopClosing (config.loop.use_pretrained_vocab).
 """
 
@@ -30,11 +30,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp  # noqa: E402
 
-from aslam_tpu.config import TUM_FR1, SystemConfig  # noqa: E402
-from aslam_tpu.models import frame as frame_mod  # noqa: E402
-from aslam_tpu.models.extractor import init_adaptive_state  # noqa: E402
-from aslam_tpu.ops import bow  # noqa: E402
-from aslam_tpu.utils import synthetic_hard as sh  # noqa: E402
+from aslam.config import TUM_FR1, SystemConfig  # noqa: E402
+from aslam.models import frame as frame_mod  # noqa: E402
+from aslam.models.extractor import init_adaptive_state  # noqa: E402
+from aslam.ops import bow  # noqa: E402
+from aslam.utils import synthetic_hard as sh  # noqa: E402
 
 
 def _photometric_variants(img: np.ndarray, rng: np.random.Generator,
@@ -99,7 +99,7 @@ def main(argv=None):
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
-    from aslam_tpu.utils import synthetic as syn
+    from aslam.utils import synthetic as syn
 
     cfg = SystemConfig(camera=TUM_FR1)
     pool = []
@@ -164,7 +164,7 @@ def main(argv=None):
 
     out = args.out or os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "aslam_tpu", "assets",
+        "aslam", "assets",
         f"vocab_{args.branching}_{args.depth}.npz")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     bow.save_vocabulary(out, vocab)

@@ -11,9 +11,9 @@ evaluation pipeline runs end-to-end exactly as it would on
      (3-channel, to exercise the gray conversion), 16-bit depth PNGs at
      1/5000 m counts, `associations.txt`, `groundtruth.txt` — the exact
      layout `Utils/utils.cpp:16-38` loads;
-  2. run the REAL CLI (`python -m aslam_tpu.main --dataset <dir>
+  2. run the REAL CLI (`python -m aslam.main --dataset <dir>
      --camera fr1 --mode slam+loop`) as a subprocess — TumSequence +
-     native PNG decode/prefetch (aslam_tpu/native), full SLAM with loop
+     native PNG decode/prefetch (aslam/native), full SLAM with loop
      closing, trajectory + histogram exports (main.cpp:124-126);
   3. evaluate `CameraTrajectory.txt` against `groundtruth.txt` with the
      TUM ATE metric (Umeyama-aligned RMSE) and write
@@ -21,7 +21,7 @@ evaluation pipeline runs end-to-end exactly as it would on
 
 Usage:
   JAX_PLATFORMS=cpu python scripts/tum_dress_rehearsal.py \
-      --frames 120 --workdir /tmp/tum_rehearsal
+      --frames 120 --workdir tum_rehearsal
 """
 
 from __future__ import annotations
@@ -40,64 +40,22 @@ sys.path.insert(0, REPO)
 
 def generate_sequence(out_dir: str, n_frames: int, seed: int = 0):
     """Write a TUM-layout sequence + ground truth to `out_dir`."""
-    from PIL import Image
-
-    from aslam_tpu.config import TUM_FR1
-    from aslam_tpu.utils import synthetic_hard as sh
+    from aslam.config import TUM_FR1
+    from aslam.utils import synthetic_hard as sh
+    from aslam.utils.dataset import write_tum_sequence
+    from aslam.workloads import to_sensor
 
     cam = TUM_FR1  # 640x480, fr1 intrinsics WITH lens distortion
     imgs, depths, poses = sh.make_hard_sequence(
         cam, kind="loop", n_frames=n_frames, seed=seed)
-
-    os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
-    os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
-    assoc, gt_lines = [], []
-    for i in range(n_frames):
-        t = 1305031102.175304 + i / 30.0   # fr1-style epoch timestamps
-        gray = np.clip(imgs[i], 0, 255).astype(np.uint8)
-        rgb = np.stack([gray, gray, gray], -1)        # 3-channel 8-bit
-        Image.fromarray(rgb).save(
-            os.path.join(out_dir, "rgb", f"{t:.6f}.png"))
-        counts = np.clip(depths[i] / cam.depth_factor, 0, 65535)
-        Image.fromarray(counts.astype(np.uint16)).save(
-            os.path.join(out_dir, "depth", f"{t:.6f}.png"))
-        assoc.append(f"{t:.6f} rgb/{t:.6f}.png {t:.6f} depth/{t:.6f}.png")
-        # groundtruth.txt rows: t tx ty tz qx qy qz qw (world-from-camera)
-        T_wc = np.linalg.inv(poses[i])
-        q = _quat_from_R(T_wc[:3, :3])
-        gt_lines.append(
-            f"{t:.6f} " + " ".join(f"{v:.6f}" for v in T_wc[:3, 3])
-            + " " + " ".join(f"{v:.6f}" for v in q))
-    with open(os.path.join(out_dir, "associations.txt"), "w") as f:
-        f.write("\n".join(assoc) + "\n")
-    with open(os.path.join(out_dir, "groundtruth.txt"), "w") as f:
-        f.write("# timestamp tx ty tz qx qy qz qw\n")
-        f.write("\n".join(gt_lines) + "\n")
+    write_tum_sequence(out_dir, *to_sensor(imgs, depths, cam), poses)
     return poses
-
-
-def _quat_from_R(R: np.ndarray) -> np.ndarray:
-    """Rotation matrix -> (qx,qy,qz,qw)."""
-    t = np.trace(R)
-    if t > 0:
-        s = np.sqrt(t + 1.0) * 2
-        return np.array([(R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
-                         (R[1, 0] - R[0, 1]) / s, 0.25 * s])
-    i = int(np.argmax(np.diag(R)))
-    j, k = (i + 1) % 3, (i + 2) % 3
-    s = np.sqrt(max(R[i, i] - R[j, j] - R[k, k] + 1.0, 1e-12)) * 2
-    q = np.zeros(4)
-    q[i] = 0.25 * s
-    q[j] = (R[j, i] + R[i, j]) / s
-    q[k] = (R[k, i] + R[i, k]) / s
-    q[3] = (R[k, j] - R[j, k]) / s
-    return q
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=120)
-    ap.add_argument("--workdir", default="/tmp/tum_rehearsal")
+    ap.add_argument("--workdir", default="tum_rehearsal")
     ap.add_argument("--mode", default="slam+loop")
     ap.add_argument("--out", default=os.path.join(REPO, "results",
                                                   "TUM_REHEARSAL.md"))
@@ -118,7 +76,7 @@ def main(argv=None):
     print(f"  rendered+encoded in {time.time() - t0:.0f}s", flush=True)
 
     # the real CLI, as a user would run it
-    cmd = [sys.executable, "-m", "aslam_tpu.main",
+    cmd = [sys.executable, "-m", "aslam.main",
            "--dataset", seq_dir, "--camera", "fr1", "--mode", args.mode,
            "--out-dir", out_dir, "--engine", args.engine,
            "--chunk", str(args.chunk)]
@@ -132,7 +90,7 @@ def main(argv=None):
         raise SystemExit(f"CLI failed rc={r.returncode}")
 
     # TUM-style evaluation: CameraTrajectory.txt vs groundtruth.txt
-    from aslam_tpu.utils import trajectory
+    from aslam.utils import trajectory
 
     est = np.loadtxt(os.path.join(out_dir, "CameraTrajectory.txt"))
     gt = np.loadtxt(os.path.join(seq_dir, "groundtruth.txt"))
@@ -157,7 +115,7 @@ def main(argv=None):
             "fr1 intrinsics WITH lens distortion, hard-suite loop "
             "trajectory) ingested by the real CLI through the native "
             "PNG decoder/prefetcher:\n\n"
-            "```\npython -m aslam_tpu.main --dataset "
+            "```\npython -m aslam.main --dataset "
             "rgbd_dataset_synthetic_fr1 --camera fr1 --mode "
             f"{args.mode} --out-dir out\n```\n\n"
             f"| metric | value |\n|---|---|\n"

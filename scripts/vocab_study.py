@@ -31,12 +31,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from aslam_tpu.config import TUM_FR1, SystemConfig, small_config  # noqa: E402
-from aslam_tpu.models import frame as frame_mod  # noqa: E402
-from aslam_tpu.models.extractor import init_adaptive_state  # noqa: E402
-from aslam_tpu.ops import bow  # noqa: E402
-from aslam_tpu.ops.hamming import INVALID_DIST, masked_distance_matrix  # noqa: E402
-from aslam_tpu.utils import synthetic_hard as sh  # noqa: E402
+from aslam.config import TUM_FR1, SystemConfig, small_config  # noqa: E402
+from aslam.models import frame as frame_mod  # noqa: E402
+from aslam.models.extractor import init_adaptive_state  # noqa: E402
+from aslam.ops import bow  # noqa: E402
+from aslam.ops.hamming import INVALID_DIST, masked_distance_matrix  # noqa: E402
+from aslam.utils import synthetic_hard as sh  # noqa: E402
 
 
 def pose_dist(Ta, Tb):

@@ -42,28 +42,23 @@ sys.path.insert(0, REPO)
 
 import jax.numpy as jnp  # noqa: E402
 
-from aslam_tpu.config import SystemConfig, CameraModel  # noqa: E402
-from aslam_tpu.models import frame as frame_mod  # noqa: E402
-from aslam_tpu.models.extractor import init_adaptive_state  # noqa: E402
-from aslam_tpu.ops import bow  # noqa: E402
+from aslam.config import SystemConfig, CameraModel  # noqa: E402
+from aslam.models import frame as frame_mod  # noqa: E402
+from aslam.models.extractor import init_adaptive_state  # noqa: E402
+from aslam.ops import bow  # noqa: E402
 
-NATURAL_DIR = "/root/reference/Tests"
 CROP_H, CROP_W = 240, 320
 
 
-def _load_natural() -> list[np.ndarray]:
-    from PIL import Image
+def _load_natural(natural_dir: str) -> list[np.ndarray]:
+    from aslam.utils.dataset import load_rgb_gray
 
-    out = []
-    for n in range(6, 11):
-        p = os.path.join(NATURAL_DIR, f"Selection_{n:03d}.png")
-        im = np.asarray(Image.open(p).convert("L")).astype(np.float32)
-        out.append(im)
-    return out
+    return [load_rgb_gray(os.path.join(natural_dir, f"Selection_{n:03d}.png"))
+            for n in range(6, 11)]
 
 
 def _render_procedural(n: int = 5) -> list[np.ndarray]:
-    from aslam_tpu.utils import synthetic_hard as sh
+    from aslam.utils import synthetic_hard as sh
 
     cam = CameraModel(fx=517.3, fy=516.5, cx=318.6, cy=255.3,
                       width=640, height=480)
@@ -184,6 +179,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--places", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--natural-dir", required=True,
+                    help="the reference repository's Tests/ directory "
+                    "(Selection_006.png ... Selection_010.png)")
     ap.add_argument("--out", default=os.path.join(REPO, "docs",
                                                   "VOCAB_STUDY.md"))
     args = ap.parse_args(argv)
@@ -193,7 +191,8 @@ def main(argv=None):
         width=CROP_W, height=CROP_H))
     rng = np.random.default_rng(args.seed)
 
-    nat = run_domain("natural", _load_natural(), cfg, args.places, rng)
+    nat = run_domain("natural", _load_natural(args.natural_dir), cfg,
+                     args.places, rng)
     pro = run_domain("procedural", _render_procedural(), cfg, args.places,
                      rng)
 

@@ -31,7 +31,7 @@ def main():
 
     import jax
 
-    from aslam_tpu.parallel import launch
+    from aslam.parallel import launch
 
     launch.initialize(
         coordinator_address=args.coordinator,
@@ -45,8 +45,8 @@ def main():
 
     import numpy as np
 
-    from aslam_tpu.ops import lba
-    from aslam_tpu.parallel import sharded_ba
+    from aslam.ops import lba
+    from aslam.parallel import sharded_ba
     from test_lba import CAM, CFG, make_ba_problem
 
     # identical deterministic problem on every process

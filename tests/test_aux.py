@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.ops import dbscan
-from aslam_tpu.utils import checkpoint, evaluation, metrics
+from aslam.config import small_config
+from aslam.ops import dbscan
+from aslam.utils import checkpoint, evaluation, metrics
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -31,7 +31,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_viewer_renders(tmp_path):
-    from aslam_tpu.utils import viewer
+    from aslam.utils import viewer
     from tests.test_slam_synthetic import run_system
 
     slam, _ = run_system(n_frames=5)
@@ -125,7 +125,7 @@ def test_recall_precision_curve(rng):
 
 
 def test_draw_matches(tmp_path, rng):
-    from aslam_tpu.utils import viewer
+    from aslam.utils import viewer
 
     img1 = rng.uniform(0, 255, (120, 160)).astype(np.float32)
     img2 = rng.uniform(0, 255, (120, 160)).astype(np.float32)
@@ -139,8 +139,8 @@ def test_draw_matches(tmp_path, rng):
 
 
 def test_pointcloud_create_and_ply(tmp_path, rng):
-    from aslam_tpu.config import small_config
-    from aslam_tpu.utils import pointcloud, synthetic
+    from aslam.config import small_config
+    from aslam.utils import pointcloud, synthetic
 
     cfg = small_config()
     imgs, depths, poses, _ = synthetic.make_sequence(n_frames=1, n_points=200)
@@ -159,7 +159,7 @@ def test_pointcloud_create_and_ply(tmp_path, rng):
 
 
 def test_statistical_outlier_filter(rng):
-    from aslam_tpu.utils import pointcloud
+    from aslam.utils import pointcloud
 
     pts = np.concatenate([
         rng.normal(0, 0.1, (200, 3)),
@@ -203,9 +203,9 @@ def test_web_viewer_serves_state():
 
     import jax.numpy as jnp
 
-    from aslam_tpu.config import small_config
-    from aslam_tpu.models import mapstate as ms
-    from aslam_tpu.utils.webviewer import WebViewer
+    from aslam.config import small_config
+    from aslam.models import mapstate as ms
+    from aslam.utils.webviewer import WebViewer
 
     cfg = small_config()
     m = ms.init_map(cfg)
@@ -220,7 +220,7 @@ def test_web_viewer_serves_state():
     try:
         v.update(m, traj=np.eye(4)[None], stats={"keyframes": 1, "fps": 123.4})
         page = urllib.request.urlopen(v.url, timeout=10).read().decode()
-        assert "aslam_tpu live map" in page
+        assert "aslam live map" in page
         st = json.loads(urllib.request.urlopen(
             v.url + "state", timeout=10).read())
         assert len(st["landmarks"]) == 3
@@ -252,9 +252,9 @@ def test_webviewer_serves_kf_fwd():
 
     import jax.numpy as jnp
 
-    from aslam_tpu.config import small_config
-    from aslam_tpu.models import mapstate as ms
-    from aslam_tpu.utils.webviewer import WebViewer
+    from aslam.config import small_config
+    from aslam.models import mapstate as ms
+    from aslam.utils.webviewer import WebViewer
 
     cfg = small_config()
     m = ms.init_map(cfg)

@@ -3,10 +3,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models.batch_vo import BatchVisualOdometry
-from aslam_tpu.models.vo import VisualOdometry
-from aslam_tpu.utils import synthetic, trajectory, se3
+from aslam.config import small_config
+from aslam.models.batch_vo import BatchVisualOdometry
+from aslam.models.vo import VisualOdometry
+from aslam.utils import synthetic, trajectory, se3
 
 
 def test_batch_vo_matches_single_runs():

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.ops import bow
+from aslam.ops import bow
 
 
 def random_desc(rng, n):

@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import TUM_FR1, CameraModel
-from aslam_tpu.utils import camera
+from aslam.config import TUM_FR1, CameraModel
+from aslam.utils import camera
 
 
 SIMPLE = CameraModel(fx=300.0, fy=300.0, cx=160.0, cy=120.0, width=320, height=240)

@@ -5,25 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from aslam_tpu.utils import dataset
-
-
-def _have_pil():
-    try:
-        import PIL  # noqa: F401
-
-        return True
-    except ImportError:
-        return False
+from aslam.utils import dataset, png
 
 
 @pytest.fixture
 def tum_dir(tmp_path, rng):
     """Synthesize a mini TUM sequence directory."""
-    if not _have_pil():
-        pytest.skip("PIL needed to write test PNGs")
-    from PIL import Image
-
     (tmp_path / "rgb").mkdir()
     (tmp_path / "depth").mkdir()
     lines = []
@@ -31,8 +18,8 @@ def tum_dir(tmp_path, rng):
         t = 1305031102.0 + 0.033 * i
         rgb = rng.integers(0, 255, (48, 64, 3), dtype=np.uint8)
         depth = rng.integers(0, 20000, (48, 64), dtype=np.uint16)
-        Image.fromarray(rgb).save(tmp_path / "rgb" / f"{t:.6f}.png")
-        Image.fromarray(depth).save(tmp_path / "depth" / f"{t:.6f}.png")
+        png.write_png(str(tmp_path / "rgb" / f"{t:.6f}.png"), rgb)
+        png.write_png(str(tmp_path / "depth" / f"{t:.6f}.png"), depth)
         lines.append(f"{t:.6f} rgb/{t:.6f}.png {t:.6f} depth/{t:.6f}.png")
     (tmp_path / "associations.txt").write_text(
         "# comment line\n" + "\n".join(lines) + "\n"
@@ -71,7 +58,7 @@ def test_sequence_prefetch_matches_sync(tum_dir):
 
 
 def test_native_loader_used_when_built(tum_dir):
-    from aslam_tpu.native import loader
+    from aslam.native import loader
 
     if not loader.available():
         pytest.skip("native library not built")
@@ -90,10 +77,10 @@ def test_associate_nearest():
 def test_native_prefetcher_matches_sync(tum_dir):
     """C++ worker-thread prefetch (native/prefetcher.cpp) must produce the
     same frames as synchronous loads, in order, on rewind, and on seek."""
-    from aslam_tpu.native.loader import NativePrefetcher
+    from aslam.native.loader import NativePrefetcher
 
     if not NativePrefetcher.create(["x"], ["x"]):
-        import aslam_tpu.native.loader as loader
+        import aslam.native.loader as loader
 
         if not loader.available():
             pytest.skip("native library not built")
@@ -134,7 +121,7 @@ def test_native_prefetcher_matches_sync(tum_dir):
 def test_sequence_native_pipeline_matches_python(tum_dir):
     """TumSequence must yield identical frames whether the native pipeline,
     the Python thread pool, or synchronous loading serves them."""
-    import aslam_tpu.native.loader as loader
+    import aslam.native.loader as loader
 
     if not loader.available():
         pytest.skip("native library not built")

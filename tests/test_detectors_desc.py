@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from aslam_tpu.config import ExtractorConfig
-from aslam_tpu.models.extractor import detector_params, extract_features
-from aslam_tpu.ops import desc as desc_ops
-from aslam_tpu.ops import detectors, fast, hamming, matching
-from aslam_tpu.ops.orb import unpack_bits
+from aslam.config import ExtractorConfig
+from aslam.models.extractor import detector_params, extract_features
+from aslam.ops import desc as desc_ops
+from aslam.ops import detectors, fast, hamming, matching
+from aslam.ops.orb import unpack_bits
 
 
 # ---------------------------------------------------------------- fixtures
@@ -251,7 +251,7 @@ def test_brief_is_not_steered():
     d, a = desc_ops.describe("BRIEF", jnp.asarray(img), jnp.asarray(xy))
     # angles are reported (API parity) but bits come from unrotated pattern:
     # check bits equal the ORB path evaluated at angle 0
-    from aslam_tpu.ops.orb import brief_descriptors, extract_patches, pack_bits
+    from aslam.ops.orb import brief_descriptors, extract_patches, pack_bits
 
     patches = extract_patches(jnp.asarray(img), jnp.asarray(xy))
     expect = pack_bits(brief_descriptors(patches, jnp.zeros(len(xy))))

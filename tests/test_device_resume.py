@@ -5,9 +5,9 @@ has no persistence at all)."""
 
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models.device_slam import DeviceSlam
-from aslam_tpu.utils import synthetic
+from aslam.config import small_config
+from aslam.models.device_slam import DeviceSlam
+from aslam.utils import synthetic
 
 
 def test_device_session_resume(tmp_path):

@@ -4,9 +4,9 @@ behavior on the same sequence (zero per-frame host sync by construction)."""
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models.device_slam import DeviceSlam
-from aslam_tpu.utils import synthetic, trajectory, se3
+from aslam.config import small_config
+from aslam.models.device_slam import DeviceSlam
+from aslam.utils import synthetic, trajectory, se3
 
 
 def test_device_slam_tracks():
@@ -99,8 +99,8 @@ def test_device_full_slam_matches_host_on_loop_scene():
     actually exercise mapping + culling records + rebuilt trajectory."""
     import dataclasses
 
-    from aslam_tpu.models.system import SlamSystem
-    from aslam_tpu.utils import synthetic_hard as sh
+    from aslam.models.system import SlamSystem
+    from aslam.utils import synthetic_hard as sh
 
     cfg = small_config()
     cam = dataclasses.replace(

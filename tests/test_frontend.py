@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import ExtractorConfig
-from aslam_tpu.ops import fast, hamming, orb, pyramid, select
-from aslam_tpu.models import extractor as ext
+from aslam.config import ExtractorConfig
+from aslam.ops import fast, hamming, orb, pyramid, select
+from aslam.models import extractor as ext
 
 
 def checkerboard_corner_image(h=120, w=160):
@@ -299,10 +299,10 @@ def test_depth_plane_fit_unbiased_on_oblique_surface():
     subpixel position and stays unbiased by construction."""
     import jax.numpy as jnp
 
-    from aslam_tpu.config import small_config
-    from aslam_tpu.models import frame as frame_mod
-    from aslam_tpu.models.extractor import init_adaptive_state
-    from aslam_tpu.utils import synthetic
+    from aslam.config import small_config
+    from aslam.models import frame as frame_mod
+    from aslam.models.extractor import init_adaptive_state
+    from aslam.utils import synthetic
 
     cfg = small_config()
     assert cfg.extractor.depth_patch >= 3
@@ -336,10 +336,10 @@ def test_depth_plane_fit_respects_discontinuity():
     across the gap), and the one-sided fit must still be unbiased."""
     import jax.numpy as jnp
 
-    from aslam_tpu.config import small_config
-    from aslam_tpu.models import frame as frame_mod
-    from aslam_tpu.models.extractor import init_adaptive_state
-    from aslam_tpu.utils import synthetic
+    from aslam.config import small_config
+    from aslam.models import frame as frame_mod
+    from aslam.models.extractor import init_adaptive_state
+    from aslam.utils import synthetic
 
     cfg = small_config()
     cam = cfg.camera

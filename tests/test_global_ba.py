@@ -3,10 +3,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models import mapstate as ms
-from aslam_tpu.ops import global_ba
-from aslam_tpu.utils import camera, se3
+from aslam.config import small_config
+from aslam.models import mapstate as ms
+from aslam.ops import global_ba
+from aslam.utils import camera, se3
 
 
 def build_noisy_map(rng, n_kfs=8, n_pts=200, pose_noise=0.02, pt_noise=0.02,

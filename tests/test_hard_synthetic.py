@@ -9,12 +9,12 @@ import dataclasses
 
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models import frame as frame_mod
-from aslam_tpu.models.extractor import init_adaptive_state
-from aslam_tpu.models.system import SlamSystem
-from aslam_tpu.utils import synthetic_hard as sh
-from aslam_tpu.utils import trajectory
+from aslam.config import small_config
+from aslam.models import frame as frame_mod
+from aslam.models.extractor import init_adaptive_state
+from aslam.models.system import SlamSystem
+from aslam.utils import synthetic_hard as sh
+from aslam.utils import trajectory
 
 
 def _small_hard_cfg():

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import CameraModel, ICPConfig, small_config
-from aslam_tpu.ops import icp
-from aslam_tpu.utils import se3, synthetic
+from aslam.config import CameraModel, ICPConfig, small_config
+from aslam.ops import icp
+from aslam.utils import se3, synthetic
 
 CAM = CameraModel(fx=300.0, fy=300.0, cx=160.0, cy=120.0, width=320, height=240)
 
@@ -88,7 +88,7 @@ def test_voxel_downsample(rng):
 
 def test_ricp_policy_runs_in_system():
     """Full system with the ADAPTIVE_RICP odometry policy still tracks."""
-    from aslam_tpu.models.system import SlamSystem
+    from aslam.models.system import SlamSystem
 
     cfg = small_config().replace(use_gicp=True)
     imgs, depths, poses_gt, _ = synthetic.make_sequence(
@@ -109,10 +109,10 @@ def test_ricp_escalates_on_poor_ransac(rng):
     off the dense depth."""
     import jax
 
-    from aslam_tpu.config import small_config
-    from aslam_tpu.models.extractor import Features
-    from aslam_tpu.models.frame import FrameData
-    from aslam_tpu.models.odometry import ricp_step
+    from aslam.config import small_config
+    from aslam.models.extractor import Features
+    from aslam.models.frame import FrameData
+    from aslam.models.odometry import ricp_step
 
     cfg = small_config().replace(use_gicp=True)
     cam = cfg.camera
@@ -128,7 +128,7 @@ def test_ricp_escalates_on_poor_ransac(rng):
             octave=jnp.zeros(M, jnp.int32), desc=jnp.asarray(desc),
             valid=jnp.ones(M, bool),
         )
-        from aslam_tpu.utils import camera as cam_mod
+        from aslam.utils import camera as cam_mod
 
         return FrameData(
             feat=feat, xy_und=xy, p3d=cam_mod.unproject(cam, xy, z),

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import BAConfig, CameraModel
-from aslam_tpu.ops import lba
-from aslam_tpu.utils import camera, se3
+from aslam.config import BAConfig, CameraModel
+from aslam.ops import lba
+from aslam.utils import camera, se3
 
 CAM = CameraModel(fx=300.0, fy=300.0, cx=160.0, cy=120.0, width=320, height=240)
 CFG = BAConfig(local_iters_1=5, local_iters_2=10)

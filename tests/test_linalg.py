@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from aslam_tpu.ops.linalg import chol_inv, chol_solve
+from aslam.ops.linalg import chol_inv, chol_solve
 
 
 def _random_spd(rng, batch, n, damp=1e-3):

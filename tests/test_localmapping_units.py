@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models import localmapping as lmm
-from aslam_tpu.models import mapstate as ms
+from aslam.config import small_config
+from aslam.models import localmapping as lmm
+from aslam.models import mapstate as ms
 
 from tests.test_mapstate import make_test_frame
 
@@ -81,8 +81,8 @@ def test_compact_window_full_size_config():
     """Full-size map capacities: the window problem must stay compact
     ([C, 4096] coupling, <100 MB) and local BA must reduce chi2.  Before
     the compaction this would materialize ~1 GB of W/Y tensors."""
-    from aslam_tpu.config import SystemConfig
-    from aslam_tpu.ops import lba as lba_ops
+    from aslam.config import SystemConfig
+    from aslam.ops import lba as lba_ops
 
     cfg = SystemConfig()  # 256 KFs x 32768 landmarks, window 64+64
     m, _ = build_map_with_kfs(cfg, n_kfs=4, share=0.7)

@@ -5,9 +5,9 @@ and local BA cycles for capacity/mask regressions that short clips miss."""
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models.system import SlamSystem
-from aslam_tpu.utils import synthetic, trajectory, se3
+from aslam.config import small_config
+from aslam.models.system import SlamSystem
+from aslam.utils import synthetic, trajectory, se3
 
 
 def test_long_run_stable():

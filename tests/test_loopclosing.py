@@ -10,11 +10,11 @@ re-anchoring."""
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models import mapstate as ms
-from aslam_tpu.models.loopclosing import LoopClosing
-from aslam_tpu.utils import camera, synthetic
-from aslam_tpu.utils.se3 import T_inv
+from aslam.config import small_config
+from aslam.models import mapstate as ms
+from aslam.models.loopclosing import LoopClosing
+from aslam.utils import camera, synthetic
+from aslam.utils.se3 import T_inv
 
 
 def build_looped_map(rng, n_kfs=20, drift_per_step=0.008):
@@ -208,7 +208,7 @@ def test_transient_alias_blocked_by_consistency_gate(rng):
     cfg, m, T_true, T_est, drift, n_kfs = build_looped_map(rng)
     lc = LoopClosing(cfg, train_after_kfs=4)
     verified = []
-    import aslam_tpu.models.loopclosing as lcm
+    import aslam.models.loopclosing as lcm
 
     orig_verify = lcm.verify_loop
 
@@ -234,7 +234,7 @@ def test_transient_alias_blocked_by_consistency_gate(rng):
 
 def test_no_refresh_for_shipped_vocab(rng, tmp_path):
     """A vocabulary loaded from disk (shipped artifact) is never retrained."""
-    from aslam_tpu.ops import bow
+    from aslam.ops import bow
 
     cfg, m, *_ = build_looped_map(rng)
     descs = np.random.default_rng(0).integers(

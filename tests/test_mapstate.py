@@ -4,11 +4,11 @@ structures, culling."""
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models import frame as frame_mod
-from aslam_tpu.models import mapstate as ms
-from aslam_tpu.models.extractor import init_adaptive_state
-from aslam_tpu.utils import synthetic
+from aslam.config import small_config
+from aslam.models import frame as frame_mod
+from aslam.models import mapstate as ms
+from aslam.models.extractor import init_adaptive_state
+from aslam.utils import synthetic
 
 
 def make_test_frame(cfg, seed=0, pose=None):

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.ops import matching
+from aslam.ops import matching
 
 
 def random_desc(rng, n):

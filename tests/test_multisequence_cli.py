@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models.system import SlamSystem
-from aslam_tpu.utils import synthetic
+from aslam.config import small_config
+from aslam.models.system import SlamSystem
+from aslam.utils import png, synthetic
 
 
 def make_clip(cfg, rng, pts, tex, n_frames, start_pose=None):
@@ -52,21 +52,9 @@ def test_multi_sequence_shared_map():
     assert max(tracked) > 20, tracked
 
 
-def _have_pil():
-    try:
-        import PIL  # noqa: F401
-
-        return True
-    except ImportError:
-        return False
-
-
-@pytest.mark.skipif(not _have_pil(), reason="needs PIL to write PNGs")
 def test_cli_main_runs(tmp_path, rng):
-    """python -m aslam_tpu.main over a fabricated mini TUM sequence."""
-    from PIL import Image
-
-    from aslam_tpu import main as cli
+    """python -m aslam.main over a fabricated mini TUM sequence."""
+    from aslam import main as cli
 
     cfg = small_config()
     pts = synthetic.random_scene(rng, 400)
@@ -80,10 +68,10 @@ def test_cli_main_runs(tmp_path, rng):
         t = 100.0 + i * 0.033
         img = synthetic.render_intensity_image(cfg.camera, T, pts, tex)
         dep = synthetic.render_depth_image(cfg.camera, T, pts, splat=4)
-        Image.fromarray(img.astype(np.uint8)).save(
-            tmp_path / "rgb" / f"{t:.6f}.png")
-        Image.fromarray((dep / cfg.camera.depth_factor).astype(np.uint16)).save(
-            tmp_path / "depth" / f"{t:.6f}.png")
+        png.write_png(str(tmp_path / "rgb" / f"{t:.6f}.png"),
+                      img.astype(np.uint8))
+        png.write_png(str(tmp_path / "depth" / f"{t:.6f}.png"),
+                      (dep / cfg.camera.depth_factor).astype(np.uint16))
         lines.append(f"{t:.6f} rgb/{t:.6f}.png {t:.6f} depth/{t:.6f}.png")
     (tmp_path / "associations.txt").write_text("\n".join(lines) + "\n")
 
@@ -102,13 +90,10 @@ def test_cli_main_runs(tmp_path, rng):
     assert (out_dir / "metrics.json").exists()
 
 
-@pytest.mark.skipif(not _have_pil(), reason="needs PIL to write PNGs")
 def test_cli_detector_descriptor_flags(tmp_path, rng):
     """--detector/--descriptor select alternate families (reference
     extractor enum, main.cpp:59); float descriptors are vo-only."""
-    from PIL import Image
-
-    from aslam_tpu import main as cli
+    from aslam import main as cli
 
     cfg = small_config()
     pts = synthetic.random_scene(rng, 400)
@@ -122,10 +107,10 @@ def test_cli_detector_descriptor_flags(tmp_path, rng):
         t = 100.0 + i * 0.033
         img = synthetic.render_intensity_image(cfg.camera, T, pts, tex)
         dep = synthetic.render_depth_image(cfg.camera, T, pts, splat=4)
-        Image.fromarray(img.astype(np.uint8)).save(
-            tmp_path / "rgb" / f"{t:.6f}.png")
-        Image.fromarray((dep / cfg.camera.depth_factor).astype(np.uint16)).save(
-            tmp_path / "depth" / f"{t:.6f}.png")
+        png.write_png(str(tmp_path / "rgb" / f"{t:.6f}.png"),
+                      img.astype(np.uint8))
+        png.write_png(str(tmp_path / "depth" / f"{t:.6f}.png"),
+                      (dep / cfg.camera.depth_factor).astype(np.uint16))
         lines.append(f"{t:.6f} rgb/{t:.6f}.png {t:.6f} depth/{t:.6f}.png")
     (tmp_path / "associations.txt").write_text("\n".join(lines) + "\n")
 
@@ -146,18 +131,16 @@ def test_cli_detector_descriptor_flags(tmp_path, rng):
         ])
 
 
-@pytest.mark.skipif(not _have_pil(), reason="needs PIL to write PNGs")
 def test_cli_device_engine_chunked(tmp_path, rng):
     """--engine device --chunk N: scan-chained device stepper through the
-    CLI, including the shorter-than-chunk tail (streamed)."""
-    from PIL import Image
-
-    from aslam_tpu import main as cli
+    CLI — a bootstrap frame, two full chunks, and the shorter-than-chunk
+    tail (streamed)."""
+    from aslam import main as cli
 
     cfg = small_config()
     pts = synthetic.random_scene(rng, 400)
     tex = synthetic.point_textures(400, seed=6)
-    poses = synthetic.camera_trajectory(7, rng=rng)
+    poses = synthetic.camera_trajectory(8, rng=rng)
 
     (tmp_path / "rgb").mkdir()
     (tmp_path / "depth").mkdir()
@@ -166,10 +149,10 @@ def test_cli_device_engine_chunked(tmp_path, rng):
         t = 100.0 + i * 0.033
         img = synthetic.render_intensity_image(cfg.camera, T, pts, tex)
         dep = synthetic.render_depth_image(cfg.camera, T, pts, splat=4)
-        Image.fromarray(img.astype(np.uint8)).save(
-            tmp_path / "rgb" / f"{t:.6f}.png")
-        Image.fromarray((dep / cfg.camera.depth_factor).astype(np.uint16)).save(
-            tmp_path / "depth" / f"{t:.6f}.png")
+        png.write_png(str(tmp_path / "rgb" / f"{t:.6f}.png"),
+                      img.astype(np.uint8))
+        png.write_png(str(tmp_path / "depth" / f"{t:.6f}.png"),
+                      (dep / cfg.camera.depth_factor).astype(np.uint16))
         lines.append(f"{t:.6f} rgb/{t:.6f}.png {t:.6f} depth/{t:.6f}.png")
     (tmp_path / "associations.txt").write_text("\n".join(lines) + "\n")
 
@@ -178,12 +161,12 @@ def test_cli_device_engine_chunked(tmp_path, rng):
     cli.main([
         "--dataset", str(tmp_path), "--camera", "test", "--mode", "slam",
         "--engine", "device", "--chunk", "3",
-        "--out-dir", str(out_dir), "--max-frames", "7",
+        "--out-dir", str(out_dir), "--max-frames", "8",
     ])
     traj = out_dir / "CameraTrajectory.txt"
     assert traj.exists()
     data = np.loadtxt(str(traj))
-    assert data.shape == (7, 8)
+    assert data.shape == (8, 8)
     # poses move (tracking alive) and are finite
     assert np.isfinite(data).all()
     assert np.abs(np.diff(data[:, 1:4], axis=0)).max() > 1e-4

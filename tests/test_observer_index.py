@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models import localmapping as lmm
-from aslam_tpu.models import mapstate as ms
+from aslam.config import small_config
+from aslam.models import localmapping as lmm
+from aslam.models import mapstate as ms
 
 from tests.test_localmapping_units import build_map_with_kfs
 from tests.test_mapstate import make_test_frame

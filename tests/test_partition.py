@@ -5,7 +5,7 @@ import jax
 import numpy as np
 import pytest
 
-from aslam_tpu.parallel import partition as pt
+from aslam.parallel import partition as pt
 
 
 def interleaved_clusters(K=32, n_clusters=4, w_in=20.0, w_out=0.0, seed=0):
@@ -63,8 +63,8 @@ def test_partition_backfills_invalid_rows():
 def test_partitioned_global_ba_matches_unpartitioned(rng):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from aslam_tpu.parallel import mesh as mesh_mod
-    from aslam_tpu.parallel import sharded_global_ba as sgba
+    from aslam.parallel import mesh as mesh_mod
+    from aslam.parallel import sharded_global_ba as sgba
     from tests.test_global_ba import build_noisy_map
 
     cfg, m, T_true, pts_true, n_kfs, n_pts = build_noisy_map(
@@ -106,9 +106,9 @@ def test_partitioned_gn_cg_matches_unpartitioned(rng):
     row permutation only moves coupling mass intra-shard)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from aslam_tpu.parallel import mesh as mesh_mod
-    from aslam_tpu.parallel import sharded_global_ba as sgba
-    from aslam_tpu.parallel.sharded_gn_cg import sharded_gn_cg_step
+    from aslam.parallel import mesh as mesh_mod
+    from aslam.parallel import sharded_global_ba as sgba
+    from aslam.parallel.sharded_gn_cg import sharded_gn_cg_step
     from tests.test_global_ba import build_noisy_map
 
     cfg, m, T_true, pts_true, n_kfs, n_pts = build_noisy_map(

@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import BAConfig, CameraModel
-from aslam_tpu.ops import ba
-from aslam_tpu.utils import camera, se3
+from aslam.config import BAConfig, CameraModel
+from aslam.ops import ba
+from aslam.utils import camera, se3
 
 CAM = CameraModel(fx=300.0, fy=300.0, cx=160.0, cy=120.0, width=320, height=240)
 CFG = BAConfig()

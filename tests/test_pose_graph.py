@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.ops import pose_graph
-from aslam_tpu.utils import se3
+from aslam.ops import pose_graph
+from aslam.utils import se3
 
 
 def chain_problem(rng, n=12, drift=0.02):
@@ -85,7 +85,7 @@ def test_analytic_jacobians_match_autodiff(rng):
     """At moderate residuals (where autodiff through the matrix log is
     clean), the analytic Jacobians must agree to first order."""
     import jax
-    from aslam_tpu.utils.se3 import se3_exp
+    from aslam.utils.se3 import se3_exp
 
     T_i = np.asarray(se3_exp(jnp.asarray(rng.normal(0, 0.3, 6).astype(np.float32))))
     T_j = np.asarray(se3_exp(jnp.asarray(rng.normal(0, 0.3, 6).astype(np.float32))))

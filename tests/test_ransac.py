@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import CameraModel, RansacConfig
-from aslam_tpu.ops import ransac
-from aslam_tpu.utils import se3
+from aslam.config import CameraModel, RansacConfig
+from aslam.ops import ransac
+from aslam.utils import se3
 
 CAM = CameraModel(fx=300.0, fy=300.0, cx=160.0, cy=120.0, width=320, height=240)
 CFG = RansacConfig(n_hypotheses=64, refine_iters=4, max_matches=256)

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.models.loopclosing import LoopClosing, add_keyframe
-from aslam_tpu.models.frame import FrameData
-from aslam_tpu.models.extractor import Features
-from aslam_tpu.utils import camera
+from aslam.models.loopclosing import LoopClosing, add_keyframe
+from aslam.models.frame import FrameData
+from aslam.models.extractor import Features
+from aslam.utils import camera
 
 from tests.test_loopclosing import build_looped_map
 

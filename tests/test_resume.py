@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models.system import SlamSystem
-from aslam_tpu.utils import checkpoint, synthetic
+from aslam.config import small_config
+from aslam.models.system import SlamSystem
+from aslam.utils import checkpoint, synthetic
 
 
 def test_resume_continues_tracking(tmp_path):
@@ -84,7 +84,7 @@ def test_resume_with_loop_database(tmp_path):
     """Vocabulary + BoW database survive checkpoint/resume."""
     import jax.numpy as jnp
 
-    from aslam_tpu.ops import bow
+    from aslam.ops import bow
 
     cfg = small_config().replace(use_loop_closing=True)
     rng = np.random.default_rng(41)

@@ -12,14 +12,14 @@
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models import mapstate as ms
-from aslam_tpu.models.extractor import Features
-from aslam_tpu.models.frame import FrameData
-from aslam_tpu.models.loopclosing import build_pose_graph, correct_map
-from aslam_tpu.models.tracking import track_local_map
-from aslam_tpu.ops import pose_graph
-from aslam_tpu.utils import camera
+from aslam.config import small_config
+from aslam.models import mapstate as ms
+from aslam.models.extractor import Features
+from aslam.models.frame import FrameData
+from aslam.models.loopclosing import build_pose_graph, correct_map
+from aslam.models.tracking import track_local_map
+from aslam.ops import pose_graph
+from aslam.utils import camera
 from tests.test_loopclosing import build_looped_map
 
 
@@ -108,7 +108,7 @@ def test_post_loop_gba_improves_on_pose_graph(rng):
     pose-graph-only on a drifted loop."""
     import dataclasses
 
-    from aslam_tpu.models.loopclosing import LoopClosing
+    from aslam.models.loopclosing import LoopClosing
 
     results = {}
     for iters in (0, 8):
@@ -133,7 +133,7 @@ def test_consistent_revisit_skips_correction(rng):
     estimate — the system must record a consistent revisit and NOT run
     the whole-map correction (repeated no-op corrections accumulated
     meters of solver noise in the r3 scale rehearsal)."""
-    from aslam_tpu.models.loopclosing import LoopClosing
+    from aslam.models.loopclosing import LoopClosing
 
     rng2 = np.random.default_rng(11)
     cfg, m, T_true, T_est, drift, n_kfs = build_looped_map(

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.utils import se3
+from aslam.utils import se3
 
 
 def random_pose(rng, t_scale=1.0, r_scale=1.0):

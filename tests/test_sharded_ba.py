@@ -5,10 +5,10 @@ import jax
 import numpy as np
 import pytest
 
-from aslam_tpu.config import BAConfig, CameraModel
-from aslam_tpu.ops import lba
-from aslam_tpu.parallel import mesh as mesh_mod
-from aslam_tpu.parallel import sharded_ba
+from aslam.config import BAConfig, CameraModel
+from aslam.ops import lba
+from aslam.parallel import mesh as mesh_mod
+from aslam.parallel import sharded_ba
 
 from tests.test_lba import CAM, CFG, cam_errors, make_ba_problem
 

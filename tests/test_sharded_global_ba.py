@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from aslam_tpu.ops import global_ba
-from aslam_tpu.parallel import mesh as mesh_mod
-from aslam_tpu.parallel import sharded_global_ba as sgba
+from aslam.ops import global_ba
+from aslam.parallel import mesh as mesh_mod
+from aslam.parallel import sharded_global_ba as sgba
 
 from tests.test_global_ba import build_noisy_map
 
@@ -56,7 +56,7 @@ def test_sharded_global_ba_improves(rng):
 def test_sharded_gn_cg_matches_single(rng):
     import jax
 
-    from aslam_tpu.parallel import sharded_gn_cg
+    from aslam.parallel import sharded_gn_cg
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -86,7 +86,7 @@ def test_sharded_gn_cg_matches_single(rng):
 def test_sharded_gn_cg_mesh_layouts(rng, shape):
     import jax
 
-    from aslam_tpu.parallel import sharded_gn_cg
+    from aslam.parallel import sharded_gn_cg
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")

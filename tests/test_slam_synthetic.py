@@ -4,10 +4,10 @@ mapping + local BA on a synthetic sequence with ground truth."""
 import numpy as np
 import jax.numpy as jnp
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models import mapstate as ms
-from aslam_tpu.models.system import SlamSystem
-from aslam_tpu.utils import synthetic, trajectory, se3
+from aslam.config import small_config
+from aslam.models import mapstate as ms
+from aslam.models.system import SlamSystem
+from aslam.utils import synthetic, trajectory, se3
 
 
 def run_system(n_frames=10, step_t=0.05, seed=4, n_points=500):

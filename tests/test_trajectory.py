@@ -1,6 +1,6 @@
 import numpy as np
 
-from aslam_tpu.utils import se3, synthetic, trajectory
+from aslam.utils import se3, synthetic, trajectory
 
 
 def test_save_load_roundtrip(tmp_path, rng):

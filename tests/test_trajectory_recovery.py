@@ -4,16 +4,16 @@ The reference records each frame's pose relative to its reference keyframe
 (`mlRelativeFramePoses`) and rebuilds the trajectory from FINAL keyframe
 poses at save time, walking the bad-KF parent chain (`mTcp`,
 keyframe.cpp:506) when the reference KF was culled.  These tests prove the
-TPU engine's equivalent: map corrections (local BA, loop closure, culling)
+device engine's equivalent: map corrections (local BA, loop closure, culling)
 propagate into the exported trajectory retroactively."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models import mapstate as ms
-from aslam_tpu.models.system import SlamSystem
-from aslam_tpu.utils import synthetic, trajectory, se3
+from aslam.config import small_config
+from aslam.models import mapstate as ms
+from aslam.models.system import SlamSystem
+from aslam.utils import synthetic, trajectory, se3
 
 from tests.test_slam_synthetic import run_system
 
@@ -90,8 +90,8 @@ def test_loop_correction_improves_exported_ate():
     """End-to-end: on a drifted looped map, pose-graph correction must
     reduce the ATE of the REBUILT trajectory vs the frozen export — the
     capability the frozen export structurally lacks (VERDICT missing #2)."""
-    from aslam_tpu.models.loopclosing import build_pose_graph, correct_map
-    from aslam_tpu.ops import pose_graph as pg_ops
+    from aslam.models.loopclosing import build_pose_graph, correct_map
+    from aslam.ops import pose_graph as pg_ops
 
     from tests.test_loopclosing import build_looped_map
 

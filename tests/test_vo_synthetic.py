@@ -7,9 +7,9 @@ extract -> match -> RANSAC -> motion-BA path is checked quantitatively.
 
 import numpy as np
 
-from aslam_tpu.config import small_config
-from aslam_tpu.models.vo import VisualOdometry
-from aslam_tpu.utils import synthetic, trajectory, se3
+from aslam.config import small_config
+from aslam.models.vo import VisualOdometry
+from aslam.utils import synthetic, trajectory, se3
 
 
 def test_vo_tracks_synthetic_sequence():
@@ -41,7 +41,7 @@ def test_vo_tracks_synthetic_sequence():
 def test_vo_with_icl_camera_preset():
     """ICL-NUIM preset has negative fy (flipped y axis) — the whole
     pipeline must be sign-safe."""
-    from aslam_tpu.config import ICL_NUIM, small_config
+    from aslam.config import ICL_NUIM, small_config
     import dataclasses
 
     cam = dataclasses.replace(ICL_NUIM, width=320, height=240,
@@ -64,10 +64,10 @@ def test_track_sequence_matches_streaming_loop():
     import jax
     import jax.numpy as jnp
 
-    from aslam_tpu.config import small_config
-    from aslam_tpu.models import frame as frame_mod
-    from aslam_tpu.models.extractor import init_adaptive_state
-    from aslam_tpu.models.odometry import track_frame, track_sequence
+    from aslam.config import small_config
+    from aslam.models import frame as frame_mod
+    from aslam.models.extractor import init_adaptive_state
+    from aslam.models.odometry import track_frame, track_sequence
 
     cfg = small_config()
     cam = cfg.camera
